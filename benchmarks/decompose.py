@@ -3,10 +3,10 @@
 
 Times, in isolation: the talker decode step, the predictor 15-codebook
 frame, the fused one-step, the fused chunk (per-step), and the streaming
-vocoder window — the TPU analog of the reference's per-component table
+vocoder window — the JAX analog of the reference's per-component table
 (README.md:388-395: talker 12 ms / predictor 26 ms / overhead 16 ms on
-Jetson).  Speed-of-light comparison: each component's HBM weight bytes /
-measured time.
+Jetson).  Speed-of-light comparison: each component's weight bytes read
+from device memory / measured time.
 
 Usage: python benchmarks/decompose.py [--preset qwen3-tts-0.6b] [--iters 50]
 """
@@ -59,7 +59,6 @@ def main():
     p.add_argument("--iters", type=int, default=50)
     p.add_argument("--quantize", default=None)
     p.add_argument("--no-flash", action="store_true")
-    p.add_argument("--no-fused", action="store_true")
     p.add_argument("--unroll", type=int, default=1)
     p.add_argument("--max-seq-len", type=int, default=2048)
     args = p.parse_args()
@@ -69,7 +68,7 @@ def main():
     from qwen3tts_tpu.models import predictor as predictor_lib
     from qwen3tts_tpu.models import talker as talker_lib
     from qwen3tts_tpu.models.predictor import SamplingPolicy
-    from qwen3tts_tpu.runtime.engine import Engine, GenerationPolicy, make_knobs
+    from qwen3tts_tpu.runtime.engine import Engine, GenerationPolicy
 
     t0 = time.time()
     cfg, params = load_pretrained(f"random:{args.preset}")
@@ -78,14 +77,13 @@ def main():
         params = quantize_bundle(params, args.quantize)
     eng = Engine(params["talker"], params["predictor"], cfg,
                  use_flash_decode=False if args.no_flash else None,
-                 use_fused_kernels=False if args.no_fused else None,
                  scan_unroll=args.unroll, max_seq_len=args.max_seq_len)
     log(f"load: {time.time()-t0:.1f}s on {jax.devices()[0]}")
 
     H = cfg.talker.hidden_size
     dt = cfg.jnp_dtype
     pol, ppol = GenerationPolicy(), SamplingPolicy()
-    knobs = make_knobs(pol, ppol)
+    knobs = eng.knobs(pol, ppol)
     key = jax.random.PRNGKey(0)
     embeds = jnp.zeros((1, 32, H), dt)
     tth = jnp.zeros((1, 16, H), dt)
@@ -98,9 +96,9 @@ def main():
     log("prefill done")
 
     # --- talker decode step alone.  Params are ARGUMENTS (a closure capture
-    #     would bake 1.2 GB of weights into the HLO as constants — the remote
-    #     compile never finishes).  kv donated, or iters in-flight copies of
-    #     the 235 MB cache exhaust HBM and stall the dispatch queue.
+    #     would bake 1.2 GB of weights into the HLO as constants).  kv
+    #     donated, or iters in-flight copies of the 235 MB cache pile up in
+    #     device memory.
     tcfg = cfg.talker
     kv = jax.tree.map(jnp.copy, state["kv"])
     x1 = jnp.zeros((1, 1, H), dt)
@@ -109,8 +107,7 @@ def main():
     def talker_step(tp, x, pos, pad, kv):
         h, kv = talker_lib.decode_step(tp, tcfg, x, pos, pad, kv,
                                        use_flash=eng.use_flash_decode,
-                                       unroll=eng.scan_unroll,
-                                       fused=eng.use_fused_kernels)
+                                       unroll=eng.scan_unroll)
         return talker_lib.codec_head(tp, h[:, 0, :]), kv
 
     pos0 = state["pos"]
@@ -132,8 +129,7 @@ def main():
     def pred_frame(pp, k):
         return predictor_lib.predict_frame(
             pp, cfg.predictor, pred_in, k, ppol.static,
-            temperature=jnp.float32(0.9), top_p=jnp.float32(1.0),
-            fused=eng.use_fused_kernels)
+            temperature=jnp.float32(0.9), top_p=jnp.float32(1.0))
 
     log("pred_frame: compiling...")
     t_pred = timeit(lambda: pred_frame(params["predictor"], key),

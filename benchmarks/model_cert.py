@@ -1,10 +1,8 @@
 """Per-model-size certification artifact: bf16 + int8, ramped TTFA, chunk
-sweep — one JSON per size (VERDICT r2 item 6: the 1.7B numbers lived only in
-docs prose; this writes them through the same ``write_results`` machinery as
-the 0.6B artifact).
+sweep — one JSON per size.
 
 Usage:
-  MODEL_SIZE=1.7B BENCH_OUT=bench_results_tpu_1.7b.json \
+  MODEL_SIZE=1.7B BENCH_OUT=bench_results_1.7b.json \
       python benchmarks/model_cert.py [--modes bf16,int8] [--chunks 1,4,8]
 
 Reference analog: the README 1.7B table (README.md:152-160).

@@ -1,11 +1,10 @@
 #!/usr/bin/env python3
 """Predictor-frame decomposition: layers vs lm_heads vs sampling.
 
-The 15-codebook frame reads 1.95 GB/frame and measures ~4.8 ms (~404 GB/s)
-on v5e — ~1.1 ms over the ~530 GB/s streaming ceiling.  Candidate costs per
-micro-step (×15): lax.top_k(50) over the 2048-logit codebook, the lm_head
-read, rope/mask recompute, scan structure.  This probe times pred_frame
-variants to attribute the loss:
+The 15-codebook frame reads ~1.95 GB of predictor weights per frame (0.6B,
+bf16).  Candidate costs per micro-step (×15): lax.top_k(50) over the
+2048-logit codebook, the lm_head read, rope/mask recompute, scan structure.
+This probe times pred_frame variants to attribute the time:
 
   sampled      the real path (top_k=50, temperature)
   greedy       do_sample=False (argmax — no top_k/softmax/gumbel)
@@ -74,15 +73,7 @@ def main():
             pp, pcfg, pred_in, k, StaticPolicy(do_sample=False, top_k=50),
             temperature=jnp.float32(0.9), top_p=jnp.float32(1.0))
 
-    @jax.jit
-    def run_micro_kernel(pp, k):
-        return predictor_lib.predict_frame(
-            pp, pcfg, pred_in, k, StaticPolicy(do_sample=True, top_k=50),
-            temperature=jnp.float32(0.9), top_p=jnp.float32(1.0),
-            micro_kernel=True)
-
-    for name, fn in (("sampled", run_sampled), ("greedy", run_greedy),
-                     ("micro_kernel", run_micro_kernel)):
+    for name, fn in (("sampled", run_sampled), ("greedy", run_greedy)):
         log(f"{name}: compiling...")
         t = timeit(lambda fn=fn: fn(pp, key), args.iters)
         results[name] = round(t * 1e3, 3)
@@ -121,7 +112,7 @@ def main():
     results["layers_only"] = round(t * 1e3, 3)
     log("layers_only", results["layers_only"], "ms")
 
-    out = {"device": str(jax.devices()[0]), "preset": args.preset,
+    out = {"device": jax.devices()[0].device_kind, "preset": args.preset,
            "ms": results}
     log(json.dumps(out))
     print(json.dumps(out))

@@ -1,7 +1,7 @@
 """Quantization quality gate: bf16 vs int8 / w8a8 / kv_quant fidelity.
 
-The speed headlines for the int8 modes live in bench_results_tpu_int8.json /
-_w8a8.json; this bench adds the missing axis (VERDICT r2 item 3): same
+The speed headlines for the int8 modes live in bench.py's
+bench_results_<card>_<mode>.json; this bench adds the missing axis: same
 weights, same seed, greedy codebook-0, fixed length — then waveform SNR,
 log-mel distance, and codec-token agreement of each quantized mode against
 the bf16 run.  With ``--update-artifacts`` the ``quality_vs_bf16`` record is
@@ -31,12 +31,12 @@ from qwen3tts_tpu.utils.quality import (  # noqa: E402
 
 def artifact_for_mode(mode: str):
     """Speed-artifact JSON patched with quality_vs_bf16 (bench.py naming:
-    bench_results_tpu_<mode>.json).  None for modes without a speed artifact
-    (bf16 is the reference; kv_quant quality lives in the quant_quality
-    record only)."""
+    bench_results_<card>_<mode>.json).  None for modes without a speed
+    artifact (bf16 is the reference; kv_quant quality lives in the
+    quant_quality record only)."""
     from qwen3tts_tpu.ops.quant import MODES as QUANT_MODES
 
-    return f"bench_results_tpu_{mode}.json" if mode in QUANT_MODES else None
+    return f"bench_results_{device_tag()}_{mode}.json" if mode in QUANT_MODES else None
 
 
 def build_model(mode: str):
@@ -68,8 +68,8 @@ def main():
     print(f"reference run: bf16 {model_name()} ({args.steps} steps)",
           file=sys.stderr)
     # the bf16 model stays live for the whole run: the teacher-forced
-    # comparison needs its logits against every quantized mode (v5e HBM
-    # holds the bf16 0.6B + one quantized copy comfortably)
+    # comparison needs its logits against every quantized mode (device
+    # memory holds the bf16 0.6B + one quantized copy comfortably)
     m = load_model(dtype="bf16")
     ids_ref, wav_ref = fixed_generation(
         m, TEXT, ref_audio, "bench reference", LANGUAGE, args.steps, args.seed)

@@ -226,7 +226,7 @@ def cmd_check_checkpoint(args):
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="qwen3tts-tpu",
-        description="TPU-native real-time Qwen3-TTS (faster-qwen3-tts capabilities)",
+        description="Real-time Qwen3-TTS in JAX (faster-qwen3-tts capabilities)",
     )
     sub = p.add_subparsers(dest="cmd", required=True)
 
@@ -234,14 +234,14 @@ def build_parser() -> argparse.ArgumentParser:
         sp.add_argument("--model", default="random:qwen3-tts-0.6b",
                         help="checkpoint dir or random:<preset>")
         sp.add_argument("--device", default=None, help="accepted for API parity; "
-                        "JAX selects the TPU automatically")
+                        "JAX selects the accelerator automatically")
         sp.add_argument("--dtype", default="bf16", choices=["bf16", "fp16", "fp32",
                                                             "bfloat16", "float16", "float32"])
         sp.add_argument("--max-seq-len", type=int, default=2048)
         sp.add_argument("--quantize", default=None, choices=sorted(QUANT_MODES),
-                        help="int8 weight-only / native-int8-MXU decode "
-                        "(v5e: ~19.2x realtime streaming vs 13.9 bf16; "
-                        "-predictor/-talker suffixes quantize one component)")
+                        help="int8 weight-only (int8) or int8 weights and "
+                        "activations (w8a8) decode; -predictor/-talker "
+                        "suffixes quantize one component")
         sp.add_argument("--kv-quant", action="store_true",
                         help="int8 KV cache (halves KV memory)")
         sp.add_argument("--seed", type=int, default=0)

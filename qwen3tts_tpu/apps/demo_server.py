@@ -384,7 +384,7 @@ def resolve_asr(spec: Optional[str]):
 
 def main(argv=None):
     logging.basicConfig(level=logging.INFO)
-    p = argparse.ArgumentParser(description="Qwen3-TTS TPU web demo")
+    p = argparse.ArgumentParser(description="Qwen3-TTS web demo")
     p.add_argument("--models", nargs="*", default=DEFAULT_MODELS)
     p.add_argument("--dtype", default="bf16")
     p.add_argument("--quantize", default=None, choices=sorted(QUANT_MODES))

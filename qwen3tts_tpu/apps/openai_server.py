@@ -172,7 +172,7 @@ def make_handler(state: TTSState):
                 max_new = int(req.get("max_new_tokens", 2048))
                 if state.batcher is not None:
                     # continuous batching: no lock — the scheduler's worker
-                    # owns the TPU and this request joins the running batch.
+                    # owns the device and this request joins the running batch.
                     # arriving(): a concurrent burst is advertised before
                     # the host-side prompt prep so the batch-start collector
                     # waits for the whole flood (scheduler.py)
@@ -190,7 +190,7 @@ def make_handler(state: TTSState):
                         else:
                             self._write_chunk(to_pcm16(audio))
                 else:
-                    with state.lock:  # serialize the TPU
+                    with state.lock:  # serialize the device
                         for audio, _, _t in state.model.generate_voice_clone_streaming(
                             text=text,
                             language=language,
@@ -229,7 +229,9 @@ def make_handler(state: TTSState):
 
 def serve(model, registry: VoiceRegistry, host: str = "0.0.0.0", port: int = 8000,
           chunk_size: int = 8, max_batch: int = 0,
-          replicas: int = 0) -> ThreadingHTTPServer:
+          replicas: int = 0, policy=None) -> ThreadingHTTPServer:
+    """The HTTP server over ``model``; ``policy`` (a GenerationPolicy) is
+    the batchers' sampling policy (default GenerationPolicy())."""
     batcher = None
     if replicas > 1:
         # data-parallel scale-out: one model replica + batcher per device,
@@ -244,13 +246,14 @@ def serve(model, registry: VoiceRegistry, host: str = "0.0.0.0", port: int = 800
             logger.warning("requested %d replicas but only %d devices; using %d",
                            replicas, len(devs), len(devs))
         batcher = ReplicaPool(model, devs, max_batch=max(max_batch, 1),
-                              chunk_size=chunk_size, first_chunks=(2, 4))
+                              chunk_size=chunk_size, first_chunks=(2, 4),
+                              policy=policy)
     elif max_batch > 1:
         from ..runtime.scheduler import ContinuousBatcher
 
         batcher = ContinuousBatcher(model, max_batch=max_batch,
                                     chunk_size=chunk_size,
-                                    first_chunks=(2, 4))
+                                    first_chunks=(2, 4), policy=policy)
     state = TTSState(model, registry, chunk_size, batcher=batcher)
     httpd = ThreadingHTTPServer((host, port), make_handler(state))
     httpd.tts_state = state  # exposes the batcher for tests / shutdown

@@ -4,7 +4,7 @@ Reference behavior (model.py:737-826): phase-1 accumulated decode until
 ≥ max(25, chunk_size) frames to calibrate ``samples_per_frame``, then phase-2
 sliding window with 25-frame left context, trimming context samples.
 
-TPU-native simplification: our codec is strictly causal and emits exactly
+Simplification: our codec is strictly causal and emits exactly
 ``total_upsample`` samples per frame, so no calibration is needed and the
 sliding window runs as ONE fixed-shape jitted executable.  Shape bucketing
 is done by RIGHT-padding the code sequence and trimming the waveform tail —
@@ -38,7 +38,7 @@ class Vocoder:
     """Jitted codec decode/encode with shape bucketing.
 
     ``compute_dtype``: decode-path compute precision.  bf16 (default) runs
-    the conv/attention stacks at full MXU rate with f32 accumulation
+    the conv/attention stacks on the bf16 tensor cores with f32 accumulation
     (``preferred_element_type`` in models/codec.py) — the same precision the
     reference runs its speech tokenizer at (whole model loaded bf16,
     model.py:107-112) and ~3x faster than f32 on the streaming window.

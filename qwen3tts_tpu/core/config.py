@@ -1,4 +1,4 @@
-"""Configuration dataclasses for the Qwen3-TTS TPU framework.
+"""Configuration dataclasses for the Qwen3-TTS JAX framework.
 
 The reference engine (see /root/reference SURVEY.md §2.2) delegates model
 configuration to the upstream ``qwen_tts`` package's HF ``config.json``.  Here
@@ -34,7 +34,7 @@ def normalize_model_size(size: Any) -> str:
     Upstream checkpoints spell it '0b6' (reference model.py:849 checks
     ``tts_model_size in "0b6"``); normalizing at config load means size
     checks are plain equality (the round-1 ``"0.6b" in "0b6"`` bug can't
-    recur — VERDICT r1 weak #2)."""
+    recur)."""
     s = str(size).strip().lower()
     return {"0b6": "0.6b", "0.6b": "0.6b", "600m": "0.6b",
             "1b7": "1.7b", "1.7b": "1.7b"}.get(s, s)

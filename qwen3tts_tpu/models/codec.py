@@ -7,9 +7,9 @@ code embeddings → sliding-window pre-transformer → ConvNeXt upsampling →
 BigVGAN-style SnakeBeta conv stack; the encoder mirrors it with a strided
 downsampling stack + residual vector quantization.
 
-TPU design notes:
+Design notes:
   - all convs are 1-D ``lax.conv_general_dilated`` in NLC layout with explicit
-    left (causal) padding — XLA maps them onto the MXU and fuses the
+    left (causal) padding — XLA maps them onto cuDNN/its own kernels and fuses the
     elementwise (Snake/Norm) ops between them;
   - strict causality end-to-end means a fixed window of ``context + chunk``
     frames decodes streaming chunks bit-stably: a frame's waveform depends

@@ -1,4 +1,4 @@
-"""Shared Qwen3-style decoder-layer primitives (functional JAX, TPU-first).
+"""Shared Qwen3-style decoder-layer primitives (functional JAX).
 
 Both the talker (28 layers) and the code predictor (5 layers) are stacks of
 identical blocks: RMSNorm → GQA attention with per-head q/k norm + RoPE →
@@ -77,7 +77,7 @@ def init_block_stack(key: jax.Array, spec: BlockSpec, dtype) -> Dict[str, jnp.nd
 def init_kv_cache(
     spec: BlockSpec, batch: int, max_len: int, dtype, kv_quant: bool = False
 ) -> Dict[str, jnp.ndarray]:
-    """Static KV cache pytree: the TPU analog of transformers StaticCache
+    """Static KV cache pytree: the JAX analog of transformers StaticCache
     (talker_graph.py:43).  Donated across jitted steps so updates are in-place.
 
     ``kv_quant``: store K/V rows as int8 with per-(position, head) f32
@@ -89,8 +89,8 @@ def init_kv_cache(
     shape = (spec.num_layers, batch, max_len, spec.num_kv_heads, spec.head_dim)
     if not kv_quant:
         return {"k": jnp.zeros(shape, dtype), "v": jnp.zeros(shape, dtype)}
-    # scales live as [L, B, KVH, S] — S on the LANE axis so the flash
-    # kernel's per-block DMA slices stay 128-aligned (Mosaic tiling rule)
+    # scales live as [L, B, KVH, S] — S innermost, so the flash kernel's
+    # per-tile scale loads are contiguous
     sshape = (spec.num_layers, batch, spec.num_kv_heads, max_len)
     return {
         "k": jnp.zeros(shape, jnp.int8),
@@ -152,8 +152,7 @@ def block_forward(
     write_pos: jnp.ndarray,  # scalar int32 — where new K/V rows go
     mask: jnp.ndarray,  # [B, Tq, S] bool
     spec: BlockSpec,
-    flash_ctx: Optional[Dict] = None,  # {"pos","pad","window"} → Pallas decode
-    fused: bool = False,  # Pallas weight-streaming kernels (ops/fused_block.py)
+    flash_ctx: Optional[Dict] = None,  # {"pos","pad","window","interpret"}
     sliding: Optional[jnp.ndarray] = None,  # traced bool — THIS layer slides
 ) -> Tuple[jnp.ndarray, Dict[str, jnp.ndarray]]:
     """One decoder block over an S-slot static KV cache.  Returns
@@ -161,10 +160,9 @@ def block_forward(
 
     The cache is passed STACKED with a (traced) layer index, written with one
     in-place ``dynamic_update_slice`` and — on the flash path — read by the
-    Pallas kernel straight from HBM.  Scanning over per-layer cache slices
-    instead (the round-1 layout) made XLA materialize/re-stack each layer's
-    ~8 MB slice every decode step: ~1 ms/step of pure copy traffic on the
-    0.6B talker at S=2048 (measured, benchmarks/decompose.py --max-seq-len).
+    Pallas kernel straight from device memory.  Scanning over per-layer cache
+    slices instead made XLA materialize/re-stack each layer's ~8 MB slice
+    every decode step (0.6B talker at S=2048).
 
     With an int8 cache (init_kv_cache kv_quant=True) the freshly computed
     K/V rows are quantized per (position, head) before the write; the local
@@ -175,24 +173,8 @@ def block_forward(
     p = layer_params
     eps = spec.rms_norm_eps
 
-    # Fused weight-streaming path: decode-shaped activations (few rows) with
-    # plain or weight-only-int8 weights ({"q","scale"} — the kernels DMA the
-    # int8 tiles, half the bytes, and dequantize on the VPU inside the
-    # pipeline).  w8a8 ({"q8"}) keeps the XLA native-int8-dot formulation.
-    def _fusable(w):
-        return not isinstance(w, dict) or "q" in w
-
-    fused = fused and B * Tq <= 32 and _fusable(p["qkv_proj"])
-
-    if fused:
-        from ..ops.fused_block import fused_norm_matmul
-
-        qkv = fused_norm_matmul(
-            x.reshape(B * Tq, H), p["input_norm"], p["qkv_proj"], eps=eps
-        ).reshape(B, Tq, -1)
-    else:
-        h = rms_norm(x, p["input_norm"], eps)
-        qkv = maybe_matmul(h, p["qkv_proj"])
+    h = rms_norm(x, p["input_norm"], eps)
+    qkv = maybe_matmul(h, p["qkv_proj"])
     q = qkv[..., : spec.q_dim].reshape(B, Tq, spec.num_heads, spec.head_dim)
     k = qkv[..., spec.q_dim : spec.q_dim + spec.kv_dim].reshape(
         B, Tq, spec.num_kv_heads, spec.head_dim)
@@ -224,9 +206,9 @@ def block_forward(
         kv["v"], v_row[None], (layer_idx, 0, write_pos, 0, 0))
 
     if flash_ctx is not None and Tq == 1:
-        # Pallas flash-decode: each row streams only ITS live KV prefix from
-        # HBM (per-row pad bounds — joined rows skip their dead blocks),
-        # reading layer ``layer_idx`` directly out of the stacked cache
+        # flash-decode kernel: each row reads only ITS live KV slots (per-row
+        # pad bounds — joined rows skip their dead tiles), straight out of
+        # layer ``layer_idx`` of the stacked cache
         from ..ops.flash_decode import flash_decode_stacked
 
         def _flash(window):
@@ -234,6 +216,7 @@ def block_forward(
                 q[:, 0], kv["k"], kv["v"], layer_idx,
                 flash_ctx["pos"], flash_ctx["pad"],
                 sliding_window=window,
+                interpret=flash_ctx.get("interpret", False),
                 k_scale=kv.get("ks"), v_scale=kv.get("vs"),
             )[:, None]
 
@@ -242,7 +225,7 @@ def block_forward(
             # Mixed layer_types stack (upstream Qwen3 carries
             # "sliding_attention" layers; reference talker_graph.py:76,
             # predictor_graph.py:96-104): the window is a STATIC kernel
-            # parameter (it sets the DMA start block), so per-layer choice
+            # parameter (it sets the first tile read), so per-layer choice
             # inside the layer scan is a two-way cond over two compiled
             # kernel variants — both trace once, and each step runs only
             # the selected branch.
@@ -254,7 +237,6 @@ def block_forward(
         # Prefill with a LOCAL [B, T, T] mask: attend over the just-computed
         # prompt K/V instead of reading the padded S-slot cache back — the
         # [B, T, S] score tensor is up to S/T times larger for nothing
-        # (bucket-1024 prefill on a 2048-slot cache: 28 → ~14 ms measured).
         # (Exact bf16 K/V even with an int8 cache.)
         attn = _attn_core(q, k, v, mask,
                           spec.num_heads // spec.num_kv_heads)
@@ -273,26 +255,13 @@ def block_forward(
                    * vs_l.transpose(0, 2, 1)[..., None]).astype(x.dtype)
         attn = _attn_core(q, k_l, v_l, mask,
                           spec.num_heads // spec.num_kv_heads)
-    if fused:
-        from ..ops.fused_block import fused_o_mlp
+    x = x + maybe_matmul(attn.reshape(B, Tq, spec.q_dim), p["o_proj"])
 
-        x = fused_o_mlp(
-            x.reshape(B * Tq, H),
-            attn.reshape(B * Tq, spec.q_dim),
-            p["o_proj"],
-            p["post_norm"],
-            p["gateup_proj"],
-            p["down_proj"],
-            eps=eps,
-        ).reshape(B, Tq, H)
-    else:
-        x = x + maybe_matmul(attn.reshape(B, Tq, spec.q_dim), p["o_proj"])
-
-        h = rms_norm(x, p["post_norm"], eps)
-        gu = maybe_matmul(h, p["gateup_proj"])
-        I = spec.intermediate_size
-        x = x + maybe_matmul(
-            jax.nn.silu(gu[..., :I]) * gu[..., I:], p["down_proj"])
+    h = rms_norm(x, p["post_norm"], eps)
+    gu = maybe_matmul(h, p["gateup_proj"])
+    I = spec.intermediate_size
+    x = x + maybe_matmul(
+        jax.nn.silu(gu[..., :I]) * gu[..., I:], p["down_proj"])
     return x, kv
 
 
@@ -309,7 +278,6 @@ def stack_forward(
     layer_is_sliding: Optional[jnp.ndarray] = None,  # [L] bool
     flash_ctx: Optional[Dict] = None,
     unroll: int = 1,
-    fused: bool = False,
 ) -> Tuple[jnp.ndarray, Dict[str, jnp.ndarray]]:
     """Run the whole layer stack with lax.scan.  Returns (x_out, kv').
 
@@ -319,9 +287,9 @@ def stack_forward(
     i.e. copy — every layer's cache slice each step; at S=2048 that was
     ~470 MB of hidden traffic per talker decode step.)
 
-    ``unroll``: scan unroll factor — >1 lets XLA software-pipeline the next
-    layer's weight DMA across the loop boundary (longer compile, measured
-    with benchmarks/decompose.py --unroll)."""
+    ``unroll``: scan unroll factor — >1 lets XLA overlap the next layer's
+    weight reads across the loop boundary (longer compile; measure with
+    benchmarks/decompose.py --unroll)."""
 
     if layer_is_sliding is None or mask_sliding is None:
         layer_is_sliding = jnp.zeros((spec.num_layers,), bool)
@@ -332,8 +300,7 @@ def stack_forward(
         lp, sliding, l = inp
         m = jnp.where(sliding, mask_sliding, mask_full)
         xc, kvc = block_forward(lp, xc, cos, sin, kvc, l, write_pos, m,
-                                spec, flash_ctx=flash_ctx, fused=fused,
-                                sliding=sliding)
+                                spec, flash_ctx=flash_ctx, sliding=sliding)
         return (xc, kvc), None
 
     (x_out, kv_new), _ = jax.lax.scan(

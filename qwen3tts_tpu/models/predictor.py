@@ -1,7 +1,7 @@
 """The code predictor: 5-layer MTP transformer emitting codebooks 1..15.
 
 The reference captures the *entire* 15-step loop — including sampling — as a
-single CUDA graph (predictor_graph.py:115-167).  The TPU-native equivalent is
+single CUDA graph (predictor_graph.py:115-167).  The JAX equivalent is
 one jitted function: a 2-token prefill followed by a ``lax.scan`` over the 14
 remaining codebooks, with the per-codebook LM heads and embedding tables
 layer-stacked and indexed inside the scan.  The tiny KV cache (max_seq = 17,
@@ -133,8 +133,6 @@ def predict_frame(
     policy,  # SamplingPolicy or StaticPolicy
     temperature=None,  # traced scalar; defaults to policy.temperature
     top_p=None,  # traced scalar; defaults to policy.top_p
-    fused: bool = False,  # Pallas weight-streaming kernels in the micro-steps
-    micro_kernel: bool = False,  # ops/predictor_step.py whole-micro-step kernel
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
     """Run the full 15-codebook frame.  Returns (tokens [B, 15], embed_sum
     [B, 1, H_talker]) where embed_sum = Σ_i codec_embeddings[i][tokens_i] —
@@ -171,15 +169,6 @@ def predict_frame(
         do_sample=policy.do_sample,
     )  # [B]
 
-    # Whole-micro-step Pallas kernel (ops/predictor_step.py): viable for the
-    # batch-1 latency path with plain (unquantized) weights and full
-    # (non-sliding) attention only — the kernel masks idx <= pos, nothing
-    # else, so a sliding-window config must use the XLA path.
-    from ..ops.quant import is_quantized
-
-    micro_kernel = (micro_kernel and B == 1 and cfg.sliding_window is None
-                    and not is_quantized(params["blocks"]["qkv_proj"]))
-
     def _sample(ks, logits):
         return sample_logits(
             ks, logits,
@@ -187,59 +176,31 @@ def predict_frame(
             use_top_p=policy.use_top_p, do_sample=policy.do_sample,
         )
 
-    if micro_kernel:
-        from ..ops.predictor_step import (
-            fused_micro_step, relayout_micro_kernel_weights)
+    # --- scan over codebooks 1..14 ---
+    def body(carry, cb):
+        kv_c, tok_prev, key_c = carry
+        key_c, ks = jax.random.split(key_c)
+        # embed previous token with table (cb-1), project to predictor space
+        emb_t = params["codec_embeddings"][cb - 1][tok_prev]  # [B, H_talker]
+        x = _proj(params, emb_t)[:, None, :]  # [B, 1, Hp]
+        pos = jnp.int32(1) + cb  # cache position 2 + (cb-1)
+        cos_d, sin_d = _rope(cfg, jnp.broadcast_to(pos[None, None], (B, 1)))
+        m_d = decode_mask(S, pos, zero_pad, cfg.sliding_window)
+        x, kv_c = stack_forward(params["blocks"], x, cos_d, sin_d, kv_c,
+                                pos, m_d, spec)
+        x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+        tok = _sample(ks, _lm_logits(params, cb, x[:, -1, :]))
+        return (kv_c, tok, key_c), tok
 
-        # one-time relayout, OUTSIDE the scan (inside it, the transposes
-        # would re-run every micro-step — jit caches code, not values)
-        hm = relayout_micro_kernel_weights(
-            params["blocks"], params["small_to_mtp"]["b"],
-            params["final_norm"], cfg.head_dim, cfg.num_key_value_heads)
-
-        def body_mk(carry, cb):
-            kk, vv, tok_prev, key_c = carry
-            key_c, ks = jax.random.split(key_c)
-            emb_t = params["codec_embeddings"][cb - 1][tok_prev]  # [1, Ht]
-            pos = jnp.int32(1) + cb
-            cos_d, sin_d = _rope(cfg, jnp.broadcast_to(pos[None, None], (1, 1)))
-            h, kk, vv = fused_micro_step(
-                hm, params["small_to_mtp"]["w"],
-                emb_t, cos_d[0, 0], sin_d[0, 0], kk, vv, pos,
-                eps=cfg.rms_norm_eps)
-            tok = _sample(ks, _lm_logits(params, cb, h))
-            return (kk, vv, tok, key_c), tok
-
-        (_, _, _, _), toks_rest = jax.lax.scan(
-            body_mk, (kv["k"][:, 0], kv["v"][:, 0], tok0, key),
-            jnp.arange(1, cfg.num_codebooks, dtype=jnp.int32),
-        )  # toks_rest: [14, B]
-    else:
-        # --- scan over codebooks 1..14 ---
-        def body(carry, cb):
-            kv_c, tok_prev, key_c = carry
-            key_c, ks = jax.random.split(key_c)
-            # embed previous token with table (cb-1), project to predictor space
-            emb_t = params["codec_embeddings"][cb - 1][tok_prev]  # [B, H_talker]
-            x = _proj(params, emb_t)[:, None, :]  # [B, 1, Hp]
-            pos = jnp.int32(1) + cb  # cache position 2 + (cb-1)
-            cos_d, sin_d = _rope(cfg, jnp.broadcast_to(pos[None, None], (B, 1)))
-            m_d = decode_mask(S, pos, zero_pad, cfg.sliding_window)
-            x, kv_c = stack_forward(params["blocks"], x, cos_d, sin_d, kv_c,
-                                    pos, m_d, spec, fused=fused)
-            x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
-            tok = _sample(ks, _lm_logits(params, cb, x[:, -1, :]))
-            return (kv_c, tok, key_c), tok
-
-        (_, _, _), toks_rest = jax.lax.scan(
-            body, (kv, tok0, key),
-            jnp.arange(1, cfg.num_codebooks, dtype=jnp.int32),
-        )  # toks_rest: [14, B]
+    (_, _, _), toks_rest = jax.lax.scan(
+        body, (kv, tok0, key),
+        jnp.arange(1, cfg.num_codebooks, dtype=jnp.int32),
+    )  # toks_rest: [14, B]
 
     tokens = jnp.concatenate([tok0[None], toks_rest], axis=0).T  # [B, 15]
 
     # embed_sum over the 15 predictor codebooks (talker space).  One-hot +
-    # einsum rides the MXU and fuses the 15 gathers + sum into one contraction.
+    # einsum fuses the 15 gathers + sum into one matrix product.
     return tokens, embed_sum_for(params, cfg, tokens, dtype)
 
 

@@ -182,13 +182,17 @@ def decode_step(
     kv: Dict[str, jnp.ndarray],
     use_flash: bool = False,
     unroll: int = 1,
-    fused: bool = False,
+    interpret: bool = False,
 ) -> Tuple[jnp.ndarray, Dict[str, jnp.ndarray]]:
     """Single-token decode over the static cache.  Returns (hidden [B,1,H], kv').
 
     Position for RoPE is ``pos - pad_count`` — the in-graph equivalent of the
     reference's ``position_ids = cache_position + rope_deltas``
     (talker_graph.py:209-211).
+
+    ``use_flash`` reads attention through the flash-decode kernel
+    (ops/flash_decode.py, GPU only; ``interpret=True`` runs it through the
+    Pallas interpreter) instead of the masked XLA path.
     """
     B = x.shape[0]
     S = kv["k"].shape[2]
@@ -202,13 +206,14 @@ def decode_step(
         else None
     )
 
-    # Pallas flash-decode covers full AND sliding layers: the window is a
-    # static kernel parameter (sets the DMA start block, flash_decode.py:63-64)
-    # so mixed layer_types stacks cond per layer between the two compiled
-    # variants (layers.py block_forward).
+    # flash-decode covers full AND sliding layers: the window is a static
+    # kernel parameter (it sets the first tile read), so mixed layer_types
+    # stacks cond per layer between the two compiled variants (layers.py
+    # block_forward).
     flash_ctx = None
     if use_flash:
-        flash_ctx = {"pos": pos, "pad": pad_count, "window": cfg.sliding_window}
+        flash_ctx = {"pos": pos, "pad": pad_count, "window": cfg.sliding_window,
+                     "interpret": interpret}
 
     x, kv = stack_forward(
         params["blocks"],
@@ -223,7 +228,6 @@ def decode_step(
         layer_is_sliding=layer_sliding_flags(cfg) if m_slide is not None else None,
         flash_ctx=flash_ctx,
         unroll=unroll,
-        fused=fused,
     )
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     return x, kv

@@ -1,24 +1,32 @@
-"""Pallas flash-decode attention over the padded static KV cache.
+"""Split-K flash-decode attention over the stacked static KV cache (Pallas,
+Triton route, written for Hopper).
 
 The reference leans on cuDNN SDPA over the full fixed-length mask
-(SURVEY.md §2.3 item 3); the XLA fallback here similarly scores all
-``max_seq_len`` slots and masks.  This kernel is the TPU-native upgrade:
+(SURVEY.md §2.3 item 3); the masked XLA path (models/layers.py) likewise
+scores all ``max_seq_len`` slots.  This kernel reads only the *live* slots
+``[max(pad, pos - window + 1), pos]`` of each row:
 
-  - K/V stay in HBM; the kernel DMA-streams only the *live* prefix
-    (``ceil((pos+1)/block)`` blocks — a dynamic trip count, so at position
-    100 of a 2048-slot cache it moves ~5% of the bytes);
-  - double-buffered async copies overlap the next block's DMA with the
-    current block's MXU work (pallas_guide.md double-buffering pattern);
-  - online softmax (running max / sum) in f32 scratch, GQA via a
-    kv-head-batched dot.
+  - grid ``(B, KVH, k_splits)``: the live range of every (row, kv-head) is
+    cut into ``k_splits`` contiguous runs of tiles, one block each, so a
+    batch-1 step still puts ``KVH * k_splits`` blocks on the card's SMs
+    (flash-decoding).  Splits are combined by log-sum-exp in a small XLA
+    epilogue;
+  - each block loads its own layer index, position and per-row pad (no
+    scalar prefetch on this route) and loops over ``block_k``-slot tiles of
+    the stacked cache ``[L, B, S, KVH, D]`` — no per-layer slice is copied
+    out before the call, and no copy or transpose of the stacked cache is
+    made around it (``chip_smoke.py`` checks the decode chunk's optimised
+    HLO for both);
+  - GQA groups are tiny (G = NH/KVH = 2 for the shipped presets), below
+    the 16 rows a tensor-core dot needs, so scores and the PV product are
+    broadcast-multiply-reduce on the CUDA cores.  The kernel is bound by
+    the bytes it reads either way;
+  - an int8 cache (``k_scale``/``v_scale`` planes ``[L, B, KVH, S]``) is
+    dequantized in registers: the K scale multiplies the score, the V scale
+    the probability, so no dequantized tile is ever materialised.
 
-Single-token decode.  Batched form: q [B, NH, D], cache [B, S, KVH, D] with
-a grid step per row and PER-ROW pad bounds — rows admitted mid-batch by the
-continuous-batching scheduler carry large left-pads, and the kernel starts
-its DMA loop at the first live block (``pad // block``), so a joined row
-costs only its own live prefix.  The reference has no batched decode at all
-(strictly batch-1, SURVEY §2.4); its single-GPU analog would score the whole
-fixed window.
+Rows admitted mid-batch by the continuous-batching scheduler carry large
+left pads; the per-row lower bound skips their dead tiles entirely.
 """
 from __future__ import annotations
 
@@ -28,155 +36,91 @@ from typing import Optional
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 NEG_INF = -1e30
+# blocks the launch aims for: two waves over an H100's 132 SMs
+_TARGET_BLOCKS = 264
 
 
-def _kernel(
-    lay_ref,  # SMEM [1] int32 — layer index into the stacked cache
-    pos_ref,  # SMEM [1] int32 — current absolute position (shared)
-    pad_ref,  # SMEM [B] int32 — PER-ROW left-pad counts
-    q_ref,  # VMEM [1, KVH, G, D] — this grid step's row
-    k_hbm,  # ANY [L, B, S, KVH, D] — full stacked cache; only layer l is read
-    v_hbm,  # ANY [L, B, S, KVH, D]
-    *rest,  # [ks_hbm, vs_hbm (ANY [L,B,KVH,S] f32) when quant], o_ref, scratch
-    block_size: int,
-    sliding_window: Optional[int],
-    scale: float,
-    quant: bool,
-):
+def default_k_splits(batch: int, num_kv_heads: int) -> int:
+    """Power-of-two split count that puts about ``_TARGET_BLOCKS`` blocks on
+    the card: 16 at batch 1 (128 blocks for 8 kv heads), 1 at batch >= 32."""
+    want = max(1, _TARGET_BLOCKS // max(batch * num_kv_heads, 1))
+    k = 1
+    while k * 2 <= min(want, 16):
+        k *= 2
+    return k
+
+
+def _kernel(meta_ref, pad_ref, q_ref, k_ref, v_ref, *rest, block_k: int,
+            k_splits: int, sliding_window: Optional[int], scale: float,
+            quant: bool):
     if quant:
-        (ks_hbm, vs_hbm, o_ref, kbuf, vbuf, ksbuf, vsbuf,
-         m_scr, l_scr, acc_scr, sems) = rest
+        ks_ref, vs_ref, o_ref, m_ref, l_ref = rest
     else:
-        o_ref, kbuf, vbuf, m_scr, l_scr, acc_scr, sems = rest
-        ks_hbm = vs_hbm = ksbuf = vsbuf = None
-    b = pl.program_id(0)
-    lay = lay_ref[0]
-    pos = pos_ref[0]
-    pad = pad_ref[b]
-    BS = block_size
-    _, KVH, G, D = q_ref.shape
-    nb = (pos + 1 + BS - 1) // BS  # dynamic trip count — the whole point
-    i0 = pad // BS  # first block with any live slot for THIS row
+        o_ref, m_ref, l_ref = rest
+    b, h, j = pl.program_id(0), pl.program_id(1), pl.program_id(2)
+    G, D = q_ref.shape[2], q_ref.shape[3]
+    lay = meta_ref[0]
+    pos = meta_ref[1]
+    lo = jnp.maximum(pad_ref[b], 0)
     if sliding_window is not None:
-        i0 = jnp.maximum(i0, jnp.maximum(pos - sliding_window + 1, 0) // BS)
+        lo = jnp.maximum(lo, pos - sliding_window + 1)
+    hi = pos + 1  # exclusive
+    # tiles stay aligned to block_k, so no load crosses the cache's end
+    t_lo = lo // block_k
+    t_hi = jnp.maximum((hi + block_k - 1) // block_k, t_lo)
+    per = (t_hi - t_lo + k_splits - 1) // k_splits
+    t0 = t_lo + j * per
+    t1 = jnp.minimum(t0 + per, t_hi)
 
-    def k_dma(i, slot):
-        return pltpu.make_async_copy(
-            k_hbm.at[lay, b, pl.ds(i * BS, BS)], kbuf.at[slot], sems.at[slot, 0]
-        )
+    qs = [plgpu.load(q_ref.at[b, h, g, :]).astype(jnp.float32) * scale
+          for g in range(G)]
+    lanes = jnp.arange(block_k, dtype=jnp.int32)
 
-    def v_dma(i, slot):
-        return pltpu.make_async_copy(
-            v_hbm.at[lay, b, pl.ds(i * BS, BS)], vbuf.at[slot], sems.at[slot, 1]
-        )
-
-    def s_dmas(i, slot):
-        # scales are [L, B, KVH, S]: slice [KVH, BS] on the lane axis
-        return (
-            pltpu.make_async_copy(
-                ks_hbm.at[lay, b, slice(None), pl.ds(i * BS, BS)],
-                ksbuf.at[slot], sems.at[slot, 2]),
-            pltpu.make_async_copy(
-                vs_hbm.at[lay, b, slice(None), pl.ds(i * BS, BS)],
-                vsbuf.at[slot], sems.at[slot, 3]),
-        )
-
-    def start_all(i, slot):
-        k_dma(i, slot).start()
-        v_dma(i, slot).start()
+    def body(t, carry):
+        start = t * block_k
+        idx = start + lanes
+        valid = (idx >= lo) & (idx < hi)
+        k = plgpu.load(k_ref.at[lay, b, pl.ds(start, block_k), h, :]
+                       ).astype(jnp.float32)  # [BK, D]
+        v = plgpu.load(v_ref.at[lay, b, pl.ds(start, block_k), h, :]
+                       ).astype(jnp.float32)
         if quant:
-            for c in s_dmas(i, slot):
-                c.start()
+            k_sc = plgpu.load(ks_ref.at[lay, b, h, pl.ds(start, block_k)])
+            v_sc = plgpu.load(vs_ref.at[lay, b, h, pl.ds(start, block_k)])
+        out = []
+        for g in range(G):
+            m_prev, l_prev, acc_prev = carry[g]
+            s = jnp.sum(k * qs[g][None, :], axis=1)  # [BK]
+            if quant:
+                s = s * k_sc
+            s = jnp.where(valid, s, NEG_INF)
+            m_new = jnp.maximum(m_prev, jnp.max(s))
+            corr = jnp.exp(m_prev - m_new)
+            # NEG_INF is a finite sentinel: with every slot masked m_new ==
+            # NEG_INF and exp(0) == 1 would count the masked slots, so zero
+            # them and let a fully masked row keep l == 0
+            p = jnp.where(valid, jnp.exp(s - m_new), 0.0)
+            pv = p * v_sc if quant else p
+            out.append((m_new, l_prev * corr + jnp.sum(p),
+                        acc_prev * corr + jnp.sum(pv[:, None] * v, axis=0)))
+        return tuple(out)
 
-    def wait_all(i, slot):
-        k_dma(i, slot).wait()
-        v_dma(i, slot).wait()
-        if quant:
-            for c in s_dmas(i, slot):
-                c.wait()
-
-    # warm up the pipeline — ONLY when the row has at least one live block.
-    # A row with pad > pos (e.g. a mis-joined batch row) gives i0 >= nb: the
-    # fori_loop below is empty, so an unconditional start here would leave
-    # an un-waited DMA/semaphore behind — a hard device abort at kernel end,
-    # not a numeric error.  Guarded, such a row falls through to the l==0
-    # divide guard and returns zeros.
-    @pl.when(i0 < nb)
-    def _():
-        start_all(i0, jax.lax.rem(i0, 2))
-
-    m_scr[...] = jnp.full_like(m_scr, NEG_INF)
-    l_scr[...] = jnp.zeros_like(l_scr)
-    acc_scr[...] = jnp.zeros_like(acc_scr)
-
-    q = q_ref[0].astype(jnp.float32)  # [KVH, G, D]
-
-    def load_kv(buf, sbuf, slot):
-        """[BS, KVH, D] tile → [KVH, BS, D] f32, dequantized when int8
-        (scale tiles arrive as [KVH, BS])."""
-        t = jnp.swapaxes(buf[slot], 0, 1).astype(jnp.float32)
-        if quant:
-            t = t * sbuf[slot][..., None]
-        return t
-
-    def body(i, _):
-        slot = jax.lax.rem(i, 2)
-        nslot = jax.lax.rem(i + 1, 2)
-
-        @pl.when(i + 1 < nb)
-        def _():
-            start_all(i + 1, nslot)
-
-        wait_all(i, slot)
-
-        k = load_kv(kbuf, ksbuf, slot)  # [KVH, BS, D]
-        scores = jax.lax.dot_general(
-            q, k, (((2,), (2,)), ((0,), (0,))),
-            preferred_element_type=jnp.float32,
-        ) * scale  # [KVH, G, BS]
-
-        idx = i * BS + jax.lax.broadcasted_iota(jnp.int32, (1, 1, BS), 2)
-        valid = (idx <= pos) & (idx >= pad)
-        if sliding_window is not None:
-            valid = valid & (idx > pos - sliding_window)
-        scores = jnp.where(valid, scores, NEG_INF)
-
-        m_prev = m_scr[:, :, 0:1]  # [KVH, G, 1]
-        m_new = jnp.maximum(m_prev, jnp.max(scores, axis=-1, keepdims=True))
-        corr = jnp.exp(m_prev - m_new)  # [KVH, G, 1]
-        p = jnp.exp(scores - m_new)  # [KVH, G, BS]
-        # NEG_INF is a finite sentinel: in a fully-masked block m_new ==
-        # NEG_INF and exp(0) == 1 would count every masked slot in the
-        # denominator.  Zero them so an all-masked row truly accumulates
-        # l == 0 and hits the divide guard below.
-        p = jnp.where(scores > NEG_INF * 0.5, p, 0.0)
-
-        l_prev = l_scr[:, :, 0:1]
-        l_scr[...] = jnp.broadcast_to(l_prev * corr + jnp.sum(p, -1, keepdims=True),
-                                      l_scr.shape)
-        m_scr[...] = jnp.broadcast_to(m_new, m_scr.shape)
-
-        v = load_kv(vbuf, vsbuf, slot)  # [KVH, BS, D]
-        pv = jax.lax.dot_general(
-            p, v, (((2,), (1,)), ((0,), (0,))),
-            preferred_element_type=jnp.float32,
-        )  # [KVH, G, D]
-        acc_scr[...] = acc_scr[...] * corr + pv
-        return 0
-
-    jax.lax.fori_loop(i0, nb, body, 0)
-    # a fully-padded row (zero live slots) accumulates l == 0 (masked p is
-    # zeroed above); max(denom, tiny) turns its 0/0 into 0 instead of NaN
-    o_ref[0] = (acc_scr[...] / jnp.maximum(l_scr[:, :, 0:1], 1e-30)
-                ).astype(o_ref.dtype)
+    init = tuple((jnp.float32(NEG_INF), jnp.float32(0.0),
+                  jnp.zeros((D,), jnp.float32)) for _ in range(G))
+    res = jax.lax.fori_loop(t0, t1, body, init)
+    for g in range(G):
+        m_g, l_g, acc_g = res[g]
+        plgpu.store(o_ref.at[b, h, j, g, :], acc_g)
+        plgpu.store(m_ref.at[b, h, j, g], m_g)
+        plgpu.store(l_ref.at[b, h, j, g], l_g)
 
 
 @functools.partial(
-    jax.jit, static_argnames=("block_size", "sliding_window", "interpret")
-)
+    jax.jit, static_argnames=("block_k", "k_splits", "sliding_window",
+                              "interpret"))
 def flash_decode_stacked(
     q: jnp.ndarray,  # [B, NH, D] (post rope+norm)
     k_stack: jnp.ndarray,  # [L, B, S, KVH, D] — the full layer-stacked cache
@@ -185,128 +129,79 @@ def flash_decode_stacked(
     pos: jnp.ndarray,  # scalar int32 (shared cache position)
     pad_count: jnp.ndarray,  # [B] int32 per-row left pads
     *,
-    block_size: int = 256,
+    block_k: int = 64,
+    k_splits: Optional[int] = None,
     sliding_window: Optional[int] = None,
     interpret: bool = False,
     k_scale: Optional[jnp.ndarray] = None,  # [L, B, KVH, S] f32 (int8 cache)
     v_scale: Optional[jnp.ndarray] = None,
 ) -> jnp.ndarray:
-    """Returns attention output [B, NH, D] (same dtype as q); one grid step
-    per row, each reading only its own live KV prefix from HBM.
+    """Attention output [B, NH, D] (dtype of q) for a single-token decode,
+    reading layer ``layer`` straight out of the stacked cache.
 
-    Takes the WHOLE stacked cache + a (traced) layer index so the per-layer
-    decode scan never materializes a per-layer cache slice — the kernel DMAs
-    straight out of ``k_stack[layer]`` in HBM.  (Slicing the stack in XLA
-    first would copy ~8 MB per layer per step, which measurably dominates the
-    talker decode step — see benchmarks/decompose.py --max-seq-len.)
-
-    With ``k_scale``/``v_scale`` the cache is int8 (init_kv_cache
-    kv_quant=True): the kernel moves HALF the KV bytes and dequantizes each
-    tile in VMEM after its DMA lands."""
+    Compiled through Pallas' Triton route, so it runs on a GPU only;
+    ``interpret=True`` runs the same kernel through the Pallas interpreter
+    (the CPU tests).  A fully masked row (``pad > pos``) returns zeros."""
+    if not interpret and jax.default_backend() != "gpu":
+        raise ValueError(
+            "flash_decode_stacked is compiled for the GPU only (backend is "
+            f"{jax.default_backend()!r}); pass interpret=True to run it "
+            "through the Pallas interpreter, or use the masked XLA path")
     L, B, S, KVH, D = k_stack.shape
     NH = q.shape[1]
     G = NH // KVH
     quant = k_scale is not None
-    block_size = min(block_size, S)
-    assert S % block_size == 0, (S, block_size)
-    if not interpret and jax.default_backend() == "cpu":
-        interpret = True  # compiled Pallas is TPU-only; CPU uses the interpreter
-    if not interpret and D % 128 != 0:
-        raise ValueError(
-            f"flash_decode requires head_dim % 128 == 0 on TPU (got {D}); "
-            "use the XLA attention path for this config")
-    qg = q.reshape(B, KVH, G, D)
-
-    in_specs = [
-        pl.BlockSpec((1, KVH, G, D), lambda b, *_: (b, 0, 0, 0)),  # q row
-        pl.BlockSpec(memory_space=pl.ANY),  # k (HBM)
-        pl.BlockSpec(memory_space=pl.ANY),  # v (HBM)
-    ]
-    scratch = [
-        pltpu.VMEM((2, block_size, KVH, D), k_stack.dtype),
-        pltpu.VMEM((2, block_size, KVH, D), v_stack.dtype),
-    ]
-    if quant:
-        in_specs += [pl.BlockSpec(memory_space=pl.ANY)] * 2  # ks, vs (HBM)
-        scratch += [pltpu.VMEM((2, KVH, block_size), jnp.float32)] * 2
-    scratch += [
-        pltpu.VMEM((KVH, G, 128), jnp.float32),
-        pltpu.VMEM((KVH, G, 128), jnp.float32),
-        pltpu.VMEM((KVH, G, D), jnp.float32),
-        pltpu.SemaphoreType.DMA((2, 4 if quant else 2)),
-    ]
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=3,
-        grid=(B,),
-        in_specs=in_specs,
-        out_specs=pl.BlockSpec((1, KVH, G, D), lambda b, *_: (b, 0, 0, 0)),
-        scratch_shapes=scratch,
-    )
-    args = [
-        jnp.reshape(layer.astype(jnp.int32), (1,)),
-        jnp.reshape(pos.astype(jnp.int32), (1,)),
-        jnp.broadcast_to(jnp.asarray(pad_count, jnp.int32).reshape(-1), (B,)),
-        qg,
-        k_stack,
-        v_stack,
-    ]
+    block_k = min(block_k, S)
+    if S % block_k:
+        raise ValueError(f"cache length {S} is not a multiple of {block_k}")
+    if k_splits is None:
+        k_splits = default_k_splits(B, KVH)
+    meta = jnp.stack([jnp.asarray(layer, jnp.int32),
+                      jnp.asarray(pos, jnp.int32)])
+    pads = jnp.broadcast_to(jnp.asarray(pad_count, jnp.int32).reshape(-1), (B,))
+    args = [meta, pads, q.reshape(B, KVH, G, D), k_stack, v_stack]
     if quant:
         args += [k_scale, v_scale]
-    out = pl.pallas_call(
+    part = (B, KVH, k_splits, G)
+    o, m, l = pl.pallas_call(
         functools.partial(
-            _kernel, block_size=block_size, sliding_window=sliding_window,
-            scale=D**-0.5, quant=quant,
-        ),
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((B, KVH, G, D), q.dtype),
+            _kernel, block_k=block_k, k_splits=k_splits,
+            sliding_window=sliding_window, scale=D**-0.5, quant=quant),
+        grid=(B, KVH, k_splits),
+        out_shape=[jax.ShapeDtypeStruct(part + (D,), jnp.float32),
+                   jax.ShapeDtypeStruct(part, jnp.float32),
+                   jax.ShapeDtypeStruct(part, jnp.float32)],
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=4, num_stages=2),
         interpret=interpret,
+        name="flash_decode",
     )(*args)
-    return out.reshape(B, NH, D)
+    # log-sum-exp combine of the splits; empty splits carry m == NEG_INF and
+    # l == 0, and an all-empty row divides 0 by the guard and returns zeros
+    m_all = jnp.max(m, axis=2, keepdims=True)
+    w = jnp.exp(m - m_all)
+    num = jnp.sum(o * w[..., None], axis=2)
+    den = jnp.sum(l * w, axis=2)
+    out = num / jnp.maximum(den, 1e-30)[..., None]
+    return out.reshape(B, NH, D).astype(q.dtype)
 
 
-def flash_decode_batched(
-    q: jnp.ndarray,  # [B, NH, D]
-    k_cache: jnp.ndarray,  # [B, S, KVH, D]
-    v_cache: jnp.ndarray,  # [B, S, KVH, D]
-    pos: jnp.ndarray,
-    pad_count: jnp.ndarray,  # [B] int32
-    *,
-    block_size: int = 256,
-    sliding_window: Optional[int] = None,
-    interpret: bool = False,
-) -> jnp.ndarray:
-    """Single-layer convenience wrapper over flash_decode_stacked."""
-    return flash_decode_stacked(
-        q, k_cache[None], v_cache[None], jnp.int32(0), pos, pad_count,
-        block_size=block_size, sliding_window=sliding_window,
-        interpret=interpret,
-    )
+def flash_decode_batched(q, k_cache, v_cache, pos, pad_count, **kw):
+    """Single-layer form: q [B, NH, D], cache [B, S, KVH, D]."""
+    return flash_decode_stacked(q, k_cache[None], v_cache[None], jnp.int32(0),
+                                pos, pad_count, **kw)
 
 
-def flash_decode(
-    q: jnp.ndarray,  # [NH, D]
-    k_cache: jnp.ndarray,  # [S, KVH, D]
-    v_cache: jnp.ndarray,  # [S, KVH, D]
-    pos: jnp.ndarray,
-    pad_count: jnp.ndarray,  # scalar int32
-    *,
-    block_size: int = 256,
-    sliding_window: Optional[int] = None,
-    interpret: bool = False,
-) -> jnp.ndarray:
-    """Single-row convenience wrapper.  Returns [NH, D]."""
-    out = flash_decode_batched(
-        q[None], k_cache[None], v_cache[None], pos,
-        jnp.reshape(pad_count, (1,)),
-        block_size=block_size, sliding_window=sliding_window,
-        interpret=interpret,
-    )
-    return out[0]
+def flash_decode(q, k_cache, v_cache, pos, pad_count, **kw):
+    """Single-row form: q [NH, D], cache [S, KVH, D].  Returns [NH, D]."""
+    return flash_decode_batched(q[None], k_cache[None], v_cache[None], pos,
+                                jnp.reshape(pad_count, (1,)), **kw)[0]
 
 
 def flash_decode_reference(q, k_cache, v_cache, pos, pad_count,
                            sliding_window=None):
-    """Pure-jnp oracle for tests: full-length masked attention."""
+    """Plain float32 oracle: full-length masked attention for one row
+    (q [NH, D], cache [S, KVH, D])."""
     S, KVH, D = k_cache.shape
     NH = q.shape[0]
     G = NH // KVH
@@ -320,5 +215,6 @@ def flash_decode_reference(q, k_cache, v_cache, pos, pad_count,
         valid = valid & (idx > pos - sliding_window)
     scores = jnp.where(valid[None, None, :], scores, NEG_INF)
     p = jax.nn.softmax(scores, axis=-1)
+    p = jnp.where(valid[None, None, :], p, 0.0)  # fully masked row -> zeros
     out = jnp.einsum("kgs,ksd->kgd", p, v)
     return out.reshape(NH, D).astype(q.dtype)

@@ -7,11 +7,11 @@ scales halves the bytes.  Two modes:
 - ``int8`` (weight-only): the int8→bf16 convert + scale is fused into the
   dot's operand read — no materialized dequantized copy, activations stay
   bf16.  Format: ``{"q": int8, "scale": f32}``.
-- ``w8a8``: activations are quantized per token on the fly and the dot runs
-  NATIVELY in int8 on the MXU (``preferred_element_type=int32``), skipping
-  the elementwise convert of the whole weight matrix that caps the
-  weight-only mode's effective bandwidth (benchmarks/decompose.py: int8
-  weight-only achieves ~60% of the bf16 path's GB/s).  Format:
+- ``w8a8``: activations are quantized per token on the fly and the dot is
+  an int8×int8 product accumulated in int32 (``preferred_element_type=
+  int32``), which XLA hands to the card's int8 matrix path (cuBLASLt IMMA on
+  Hopper); no float copy of the weight matrix is made.  Rows are rescaled by
+  the activation and weight scales afterwards.  Format:
   ``{"q8": int8, "scale": f32}`` — the key name is the (static) mode tag.
 
 Opt-in: ``FasterQwen3TTS.from_pretrained(..., quantize="int8"|"w8a8")``, or
@@ -74,7 +74,7 @@ def quantize_act(x: jnp.ndarray):
 
 
 def w8a8_matmul(x: jnp.ndarray, qw: Dict[str, jnp.ndarray]) -> jnp.ndarray:
-    """Native int8 MXU dot: quantize x per token, int8×int8→int32, rescale."""
+    """Int8 dot: quantize x per token, int8×int8→int32, rescale."""
     xq, xs = quantize_act(x)
     acc = jax.lax.dot_general(
         xq, qw["q8"],

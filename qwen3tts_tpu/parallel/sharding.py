@@ -1,11 +1,12 @@
-"""Device-mesh sharding: DP + TP over ICI as a config change, not a rewrite.
+"""Device-mesh sharding: DP + TP across cards as a config change, not a rewrite.
 
 The reference is strictly single-GPU single-process — no distributed
 component of any kind (SURVEY.md §2.4; model.py:96-97 rejects non-CUDA).
-This module is the deliberate TPU-native escape hatch recorded there: params
-live under a ``jax.sharding.Mesh`` with named-axis PartitionSpecs so the 1.7B
-(or larger) models can tensor-shard across ICI, and serving replicas scale on
-the dp axis.  On one chip every spec collapses to replicated — zero cost.
+This module is the deliberate escape hatch recorded there: params live
+under a ``jax.sharding.Mesh`` with named-axis PartitionSpecs so the 1.7B
+(or larger) models can tensor-shard across cards (XLA's collectives go to
+NCCL over NVLink), and serving replicas scale on the dp axis.  On one card
+every spec collapses to replicated — zero cost.
 
 Also provides a sharded training step (forward + CE loss + grad + adamw) used
 by the multi-chip dry-run: inference is the product surface, but the layout
@@ -134,9 +135,8 @@ def sharded_inference_check(mesh: Mesh, steps: int = 8,
     chunk) with TP-sharded params+KV over ``mesh``, and the identical
     computation on replicated params; returns both greedy token sequences.
 
-    This is the escape-hatch claim of SURVEY §2.4 made executable: TP over
-    ICI is a config change to the inference engine, not a rewrite
-    (VERDICT r1 next-step 2 — the dry-run must certify *inference*)."""
+    This is the escape-hatch claim of SURVEY §2.4 made executable: TP
+    across cards is a config change to the inference engine, not a rewrite."""
     import dataclasses
 
     from ..core.config import PredictorConfig, TalkerConfig, TTSModelConfig
@@ -177,7 +177,7 @@ def sharded_inference_check(mesh: Mesh, steps: int = 8,
             tp_params = shard_params(tparams, mesh, talker_param_specs(cfg.talker))
             pp_params = shard_params(pparams, mesh, predictor_param_specs(cfg.predictor))
         eng = Engine(tp_params, pp_params, cfg, max_seq_len=64,
-                     kv_quant=kv_quant)
+                     kv_quant=kv_quant, use_flash_decode=False)
         if shard:
             # pre-populate the KV pool with a TP-sharded cache so prefill
             # writes (and all decode reads) are shard-local
@@ -243,7 +243,7 @@ def sharded_batched_serving_check(
             pp_params = shard_params(pparams, mesh,
                                      predictor_param_specs(cfg.predictor))
         eng = Engine(tp_params, pp_params, cfg, max_seq_len=64, batch=rows,
-                     kv_quant=kv_quant)
+                     kv_quant=kv_quant, use_flash_decode=False)
         if shard:
             eng._kv_pool.append(shard_kv_cache(eng.new_kv(), mesh))
         state = eng.prefill(embeds, jax.random.PRNGKey(7), pol, knobs=knobs)
@@ -327,10 +327,10 @@ def sharded_flagship_check(
     their KVH axis alongside the cache (kv_cache_specs).
 
     Greedy tokens from the TP-sharded run are compared with the replicated
-    single-device run; both use random preset weights.  The flash kernel
-    stays on its platform default (off on CPU — the XLA masked path reads the
-    sharded int8 cache).  VERDICT r2 item 2: toy-scale TP parity said nothing
-    about flagship geometry; this does.
+    single-device run; both use random preset weights.  Both runs read
+    attention through the masked XLA path (the one a sharded engine uses),
+    so the comparison isolates the sharding.  Toy-scale TP parity says nothing about flagship
+    geometry; this does.
 
     ``dtype`` defaults to float32 for the parity claim: in bf16 the
     row-parallel psum's different reduction order flips razor-thin argmaxes
@@ -342,7 +342,7 @@ def sharded_flagship_check(
 
     ``params``: pre-built fp32 (talker, predictor) pytrees to reuse (cast to
     ``dtype`` here) — the dryrun inits the flagship ONCE and shares it across
-    the fp32 and bf16 checks (VERDICT r4 item 1).  ``run_single=False`` skips
+    the fp32 and bf16 checks.  ``run_single=False`` skips
     the replicated baseline and returns (sharded, None)."""
     import dataclasses as _dc
 
@@ -381,7 +381,7 @@ def sharded_flagship_check(
             tpp = shard_params(tparams, mesh, talker_param_specs(tk))
             ppp = shard_params(pparams, mesh, predictor_param_specs(cfg.predictor))
         eng = Engine(tpp, ppp, cfg, max_seq_len=max_seq_len,
-                     kv_quant=kv_quant)
+                     kv_quant=kv_quant, use_flash_decode=False)
         if shard:
             eng._kv_pool.append(shard_kv_cache(eng.new_kv(), mesh))
         ids, _ = loops.fast_generate(
@@ -406,7 +406,7 @@ def sharded_flagship_structural_check(
     fp32_ids: Optional[np.ndarray] = None,
     engine_generation: bool = True,
 ) -> Dict[str, float]:
-    """bf16 flagship TP: the Layer-2 *structural* analog (VERDICT r3 item 7).
+    """bf16 flagship TP: the Layer-2 *structural* analog.
 
     ``sharded_flagship_check`` certifies the sharding LAYOUT with fp32
     token-exactness; this certifies the PRODUCTION dtype.  In bf16 the
@@ -425,8 +425,7 @@ def sharded_flagship_structural_check(
 
     Returns the measured deltas for the dry-run report.
 
-    Budget levers (VERDICT r4 item 1 — this check's fresh compiles cost the
-    r4 dryrun its timeout): ``params`` reuses the dryrun's single fp32 init;
+    Budget levers: ``params`` reuses the dryrun's single fp32 init;
     ``fp32_ids`` (the fp32 replicated baseline tokens from
     sharded_flagship_check) makes the bf16 engine generation a SINGLE sharded
     run compared against that baseline instead of a fresh bf16
@@ -540,7 +539,7 @@ def make_train_step(cfg: TalkerConfig, mesh: Mesh, learning_rate: float = 1e-4):
 
     Shardings: params per ``talker_param_specs`` (TP), batch over dp, and the
     sequence axis of activations over tp for the norm/embedding portions
-    (sequence-parallel analog) — XLA places the collectives on ICI.
+    (sequence-parallel analog) — XLA inserts the collectives.
     """
     import optax
 

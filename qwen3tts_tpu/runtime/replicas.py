@@ -3,9 +3,9 @@ behind a single ``submit()`` front door.
 
 The reference is strictly single-GPU; concurrent requests serialize behind a
 lock (reference examples/openai_server.py:71,181).  SURVEY §2.4 frames the
-TPU-native scale-out story as "multi-chip = N independent replicas behind
-the server" — the latency path stays single-chip, so ICI/DCN bandwidth
-plays no role in it.  ReplicaPool is that component:
+scale-out story as "multi-card = N independent replicas behind the
+server" — the latency path stays on one card, so the links between cards
+play no role in it.  ReplicaPool is that component:
 
   * the weights are copied once per device (FasterQwen3TTS.replicate_to —
     host-side helpers are shared, device state is per-replica);

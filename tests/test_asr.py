@@ -1,6 +1,6 @@
 """First-party CTC ASR (models/asr.py): the demo's /transcribe path works
-end-to-end with random weights (VERDICT r2 item 7; reference nano-parakeet
-surface, demo/server.py:44,225-248)."""
+end-to-end with random weights (reference nano-parakeet surface,
+demo/server.py:44,225-248)."""
 import json
 import threading
 import urllib.request
@@ -108,8 +108,7 @@ def test_resolve_asr_specs():
 def test_selftrained_checkpoint_reproduces_committed_metrics():
     """The committed self-trained checkpoint (tools/train_asr.py) does on a
     cold host exactly what its own committed metrics record — no more, no
-    less (VERDICT r4 item 2: the gate must assert what the committed
-    artifact can actually do).
+    less.
 
     Scope, honestly stated: /transcribe is DEMO PLUMBING that becomes a real
     transcriber only with real TTS weights (reference nano-parakeet,

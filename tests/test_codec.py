@@ -1,7 +1,7 @@
 """Codec tests: shapes, strict causality, pad-window equivalence, RVQ encoder.
 
 These invariants are what make the streaming vocoder a single fixed-shape
-executable (audio/vocoder.py) — the TPU analog of the reference's calibrated
+executable (audio/vocoder.py) — the JAX analog of the reference's calibrated
 sliding-window decode (model.py:737-826)."""
 import jax
 import jax.numpy as jnp
@@ -42,8 +42,8 @@ def _perturb_biases(params, eps=0.05):
     """Set every bias/offset leaf to a nonzero constant.
 
     Random init zeroes all biases, which would hide any padding scheme that
-    is only exact for zero biases (the round-1 left-pad masking bug —
-    ADVICE.md round 1, models/codec.py history)."""
+    is only exact for zero biases (the round-1 left-pad masking bug,
+    models/codec.py history)."""
     def f(path, leaf):
         name = path[-1].key if hasattr(path[-1], "key") else str(path[-1])
         if name in ("b", "norm_b", "beta1", "beta2", "out_beta", "beta"):

@@ -1,4 +1,4 @@
-"""Engine/loops tests: the three-layer parity architecture adapted for TPU
+"""Engine/loops tests: the three-layer parity architecture adapted for JAX
 (reference tests/test_e2e_parity.py; SURVEY.md §4 translation):
 
   Layer A (exactness, fp32): streaming == non-streaming token-exact (same
@@ -138,7 +138,7 @@ def test_cache_overflow_stops_cleanly(tiny_engine, prompt_inputs):
     )
     # KV is compacted after prefill, so the budget is measured from the TRUE
     # prefill length (10), not the padded bucket (32): the pad slots must NOT
-    # consume generation budget (ADVICE r1 engine.py:213).
+    # consume generation budget.
     true_len = embeds.shape[1]
     assert ids.shape[0] <= tiny_engine.max_seq_len - true_len
     assert ids.shape[0] > tiny_engine.max_seq_len - 32  # recovered pad budget
@@ -146,8 +146,7 @@ def test_cache_overflow_stops_cleanly(tiny_engine, prompt_inputs):
 
 def test_warmup_all_covers_every_bucket(tiny_cfg, tiny_models):
     """After warmup_all, requests of ANY length (any prefill/tth bucket,
-    warmed chunk sizes) trigger ZERO new compiles — no mid-serving stall
-    (VERDICT r1 next-step 5)."""
+    warmed chunk sizes) trigger ZERO new compiles — no mid-serving stall."""
     from qwen3tts_tpu.runtime.engine import Engine
 
     tp, pp = tiny_models

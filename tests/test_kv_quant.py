@@ -3,7 +3,7 @@
 Contract: attention over the int8 cache equals attention over an exact bf16
 cache up to the per-row quantization error (int8 symmetric, per
 (position, head) scale ⇒ relative error ≲ 1/127 per element); the flash
-kernel's in-VMEM dequant matches the XLA masked path; and an Engine built
+kernel's in-register dequant matches the XLA masked path; and an Engine built
 with kv_quant=True generates end-to-end with logits close to the exact
 engine's.
 """
@@ -33,7 +33,7 @@ def _rand(key, shape, dtype=jnp.float32, scale=1.0):
 def test_quantized_cache_structure():
     kv = init_kv_cache(SPEC, 2, 16, jnp.bfloat16, kv_quant=True)
     assert kv["k"].dtype == jnp.int8 and kv["v"].dtype == jnp.int8
-    # scales: [L, B, KVH, S] (S on lanes for 128-aligned kernel DMA slices)
+    # scales: [L, B, KVH, S] (S innermost: contiguous per-tile scale loads)
     assert kv["ks"].shape == (2, 2, 2, 16) and kv["ks"].dtype == jnp.float32
 
 
@@ -82,8 +82,8 @@ def test_flash_stacked_int8_matches_masked(pad):
 
     out = flash_decode_stacked(
         q, jnp.asarray(kq), jnp.asarray(vq), jnp.int32(1), jnp.int32(pos),
-        pads, block_size=32,
-        # cache scale layout: [L, B, KVH, S] (S on lanes for aligned DMA)
+        pads, block_k=32, interpret=True,
+        # cache scale layout: [L, B, KVH, S]
         k_scale=jnp.asarray(sc_k.transpose(0, 1, 3, 2), jnp.float32),
         v_scale=jnp.asarray(sc_v.transpose(0, 1, 3, 2), jnp.float32))
 

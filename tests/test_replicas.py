@@ -123,3 +123,19 @@ def test_all_replicas_dead_raises(pool, ref_wav):
     _kill(pool, 1, ref_wav)
     with pytest.raises(RuntimeError, match="all 2 replicas are dead"):
         pool.submit("No survivors.", "English", ref_wav, "ref")
+
+
+def test_replica_allocations_land_on_its_device(tiny_tts):
+    """A replica's fresh buffers (KV cache, suppress mask, sampling knobs,
+    RNG) are placed on the replica's device, not on the default one."""
+    dev = jax.devices()[3]
+    rep = tiny_tts.replicate_to(dev, seed=5)
+    eng = rep.engine
+    assert eng.device == dev
+    for leaf in jax.tree.leaves(eng.new_kv()):
+        assert leaf.devices() == {dev}
+    assert eng._suppress.devices() == {dev}
+    assert eng.knobs(NO_EOS, GREEDY_PRED).devices() == {dev}
+    assert rep._rng.devices() == {dev}
+    # batch engines built later on the replica inherit its device
+    assert rep._batch_engine(2).device == dev

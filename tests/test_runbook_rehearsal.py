@@ -1,4 +1,4 @@
-"""RUNBOOK step 1-3 rehearsal at REAL 0.6B geometry (VERDICT r4 item 7).
+"""RUNBOOK step 1-3 rehearsal at REAL 0.6B geometry.
 
 ``test_torch_checkpoint.py`` proves the converter on a tiny config; this
 module synthesizes an upstream-layout SHARDED checkpoint at the full

@@ -201,7 +201,7 @@ def test_concurrent_requests_spread_over_replicas(oai_server_replicas):
 
 
 def test_client_disconnect_cancels_batched_row(tiny_tts, ref_wav, tmp_path):
-    """ADVICE r2 (medium): a client that disconnects mid-stream must have its
+    """A client that disconnects mid-stream must have its
     batch row cancelled — not keep generating to max_new_tokens and stall the
     shared batch once its queue fills."""
     import socket

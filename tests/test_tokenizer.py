@@ -1,10 +1,10 @@
 """HF-tokenizer branch: a tiny REAL tokenizer.json drives the chat templates.
 
-Round 1 only ever exercised the byte-level fallback (VERDICT r1 weak #3);
+Round 1 only ever exercised the byte-level fallback;
 these tests build a genuine ``tokenizers.Tokenizer``, save its tokenizer.json,
 and verify the template id layouts the prompt builder slices
 (reference model.py:434-436: role = ids[:,:3], text = ids[:,3:-5] assistant /
-[3:-2] ref) plus the from_pretrained threading (ADVICE r1 api/model.py:77).
+[3:-2] ref) plus the from_pretrained threading.
 """
 import logging
 
@@ -66,7 +66,7 @@ def test_unknown_words_map_to_unk_not_crash(tok_json):
 @pytest.mark.slow
 def test_from_pretrained_threads_tokenizer_json(tmp_path, tok_json, caplog):
     """A checkpoint dir WITH tokenizer.json gets the HF tokenizer; one
-    without warns loudly and falls back (ADVICE r1 medium)."""
+    without warns loudly and falls back."""
     from pathlib import Path
 
     from qwen3tts_tpu import FasterQwen3TTS

@@ -69,7 +69,7 @@ def test_torch_load_equals_canonical_load(bundles):
 @pytest.mark.slow
 def test_from_pretrained_torch_dir_generates_same_tokens(bundles, ref_wav):
     """Full loop: from_pretrained on the torch dir → generate → audio equal
-    to the canonical-format load of the same weights (VERDICT r1 item 1)."""
+    to the canonical-format load of the same weights."""
     from qwen3tts_tpu import FasterQwen3TTS
 
     _, _, canon, torch_dir = bundles
@@ -99,7 +99,7 @@ def test_missing_half_raises(bundles, tmp_path):
 
 
 def test_strict_mode_reports_exact_names(bundles, tmp_path):
-    """VERDICT r2 item 1: a deliberately renamed + missing-tensor checkpoint
+    """A deliberately renamed + missing-tensor checkpoint
     must fail with an actionable diagnostic listing the exact names."""
     from safetensors.numpy import save_file
 

@@ -3,7 +3,7 @@
 The reference demo transcribes with a real nano-parakeet checkpoint
 (reference demo/server.py:225-248); this zero-egress image has no ASR
 weights, so the recognizer (models/asr.py) ships functional-but-garbage on
-random init.  This script closes the loop (VERDICT r3 item 5) with the only
+random init.  This script closes the loop with the only
 supervised dataset constructible in-repo: the framework's OWN synthesized
 speech.
 
